@@ -1,4 +1,4 @@
-"""TPU-native successive-orders-of-scattering radiative transfer framework.
+"""Successive-orders-of-scattering radiative transfer framework.
 
 A from-scratch JAX/XLA/Pallas re-design with the capabilities of the
 CNES SOS-ABS V5.1 reference (polarized plane-parallel RT with gaseous

@@ -6,7 +6,7 @@ merge/sort ``SOS_ANGLES_GAUSS_USER`` ``src/SOS_ANGLES.F:713``).
 
 The reference builds two angle sets and writes them to text files consumed
 downstream; here they are plain arrays produced at setup time on the host
-(float64 NumPy — this is O(100) work, not a TPU kernel):
+(float64 NumPy — this is O(100) work, not a device kernel):
 
 * the "Lum" grid — radiance field directions: ``n_gauss`` positive
   Gauss-Legendre nodes of the ``2*n_gauss``-point rule, plus up to 20 user

@@ -28,33 +28,35 @@ _cache_dir: Optional[str] = None
 _STATS = {"hits": 0, "misses": 0}
 
 
-def enable_compile_cache(path: Optional[str] = None) -> None:
+#: compile-cache directory used when ``JAX_COMPILATION_CACHE_DIR`` is not
+#: set: one fixed path inside the checkout (listed in ``.gitignore``).  A
+#: fixed path matters: it is part of the cache key, so a moving directory
+#: never hits.
+COMPILE_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache")
+
+
+def enable_compile_cache() -> None:
     """Enable JAX's persistent compilation cache for this process.
 
-    A fully cold 20-case LUT sweep on the v5e measures 79 s of which
-    ~50 s is XLA/Mosaic compilation (solver shapes + the per-bucket Mie
-    recurrences); with this cache populated the same cold process runs
-    13.7 s (r5).  Called idempotently from :func:`proc.run` so library
-    users get it without the CLI's explicit wiring; a user-configured
-    ``jax_compilation_cache_dir`` is never overridden, and
+    Cold runs are compile-dominated (every solver shape and the per-bucket
+    Mie recurrences), so a fresh process that finds its executables on
+    disk starts much sooner.  Called idempotently from :func:`proc.run`
+    so library users get it without the CLI's explicit wiring.  Where
+    ``JAX_COMPILATION_CACHE_DIR`` is set (JAX reads it itself), or a
+    directory was configured otherwise, no other directory is set;
+    otherwise the cache goes to :data:`COMPILE_CACHE_DIR`.
     ``RTSOS_NO_COMPILE_CACHE`` opts out.
     """
     import jax
 
     if os.environ.get("RTSOS_NO_COMPILE_CACHE"):
         return
-    if jax.config.jax_compilation_cache_dir:
-        return                       # already configured (cli/tests/user)
-    path = path or os.environ.get(
-        "RTSOS_CACHE_DIR", os.path.expanduser("~/.cache/jax_cc"))
-    try:
-        os.makedirs(path, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", path)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs",
-                          0.0)
-    except Exception:                # unwritable path: stay disabled
-        pass
+    if not jax.config.jax_compilation_cache_dir:
+        os.makedirs(COMPILE_CACHE_DIR, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", COMPILE_CACHE_DIR)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
 
 
 def set_cache_dir(path: Optional[str]) -> None:

@@ -1,11 +1,11 @@
 """Physical and dimensioning constants of the SOS-ABS successive-orders framework.
 
-TPU-native re-design of the reference constant header ``inc/SOS.h`` (561 lines
+Re-design of the reference constant header ``inc/SOS.h`` (561 lines
 of cpp ``#define``; see reference ``inc/SOS.h:46-561``).  Only *semantic*
 constants live here (physics thresholds, defaults, spectral domain).  Array
 dimensioning constants of the Fortran reference (``CTE_OS_NBMU_MAX`` etc.) are
 deliberately absent: the JAX implementation compiles to the *actual* problem
-shapes, padding only where the hardware tiling wants it.
+shapes, padding only where the solver's layout wants it.
 """
 
 from __future__ import annotations

@@ -7,8 +7,8 @@ The Fortran recomputes the three function families for one Fourier order IS at
 a time inside the solver loop.  Here the whole basis tensor
 ``(n_fourier, L+1, n_dirs)`` is evaluated once per angle grid, on the host in
 float64 (it depends only on the static direction cosines), and then reused by
-the TPU kernel builder as a constant: the per-IS phase kernels become plain
-matmuls over this basis (see ``kernels.py``), which is the MXU-friendly
+the kernel builder as a constant: the per-IS phase kernels become plain
+matmuls over this basis (see ``kernels.py``), the dense-matmul
 formulation of the reference's ``O(OS_NB * NBMU^2)`` triple loop
 (``src/SOS_OS.F:2121-2155``).
 

@@ -4,7 +4,7 @@ Re-design of the kernel part of reference ``SOS_NOYAUX``
 (``src/SOS_OS.F:2114-2155``): the reference fills six ``(2N+1)^2`` matrices
 per Fourier order with an explicit ``O(OS_NB * NBMU^2)`` loop nest; here each
 matrix is a matmul ``F^T diag(c) G`` over the precomputed GSF basis, batched
-over all Fourier orders at once — three dense contractions on the MXU.
+over all Fourier orders at once — three dense contractions.
 
 Kernel definitions (reference ``src/SOS_OS.F:2134-2153``)::
 
@@ -57,9 +57,10 @@ def _pair(f, coef, g):
     coef = jnp.asarray(coef)
     if coef.ndim == 1:
         coef = coef[None, :]
-    # precision: a TPU f32 einsum multiplies in bfloat16 by default; the
-    # OS_NB ~ 80-term Legendre contraction would lose ~2-3 digits in the
-    # kernels that seed every scattering order (precision.py gate)
+    # precision: a default-precision f32 einsum may multiply in reduced
+    # precision (TF32 on a GPU); the OS_NB ~ 80-term Legendre contraction
+    # would lose ~2-3 digits in the kernels that seed every scattering
+    # order (precision.py gate)
     return jnp.einsum("sla,sl,slb->sab", f, coef, g,
                       preferred_element_type=f.dtype,
                       precision=jax.lax.Precision.HIGHEST)

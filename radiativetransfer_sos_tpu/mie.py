@@ -10,7 +10,7 @@ recurrences per alpha and an O(N2 * n_angles) series sum.  Here:
 * the angular functions pi_n(mu), tau_n(mu) are alpha-independent and
   precomputed once as an (N, n_angles) table;
 * the amplitude sums S1/S2 become two (n_alpha x N) @ (N x n_angles)
-  matmuls — the MXU path that replaces the reference's hot loop
+  matmuls — the dense-matmul path that replaces the reference's hot loop
   (``src/SOS_MIE.F:884-901``).
 
 Numerical scheme (faithful to the reference):
@@ -313,10 +313,11 @@ def run_mie_sweep(mu, rn, in_, alpha_min, alpha_max, batch: int = 256):
     Always runs on the CPU backend with x64 enabled and float64 arrays
     (no dtype parameter — advisor r3): the Ricatti-Bessel recurrences need
     double precision (the reference is DOUBLE PRECISION throughout,
-    ``src/SOS_MIE.F:205``) — in a TPU f32 process the sweep would silently
+    ``src/SOS_MIE.F:205``) — in an f32 process the sweep would silently
     truncate and overflow to NaN extinction sections, which then poisons
     the whole pipeline (setup is float64 per the project precision policy;
-    only the solve drops to f32).
+    only the solve drops to f32).  Running it on the CPU backend is host
+    set-up by design, not a fallback: the accelerator runs the solve.
     """
     cpu0 = jax.devices("cpu")[0]
     with jax.enable_x64(True), jax.default_device(cpu0):

@@ -15,7 +15,7 @@ communication is the CKD weighted aggregation (``SOS_AGGREGATE``,
 
 Shardings are expressed with ``jax.sharding.NamedSharding`` on jit
 boundaries; XLA inserts the collectives (all-gather of boundary records,
-all-reduce of the weighted sum) over ICI.
+all-reduce of the weighted sum), which run over NCCL between GPUs.
 """
 
 from __future__ import annotations
@@ -41,11 +41,11 @@ def make_mesh(n_scene: int, n_fourier: int, devices=None) -> Mesh:
 
 
 def init_distributed() -> bool:
-    """Initialize ``jax.distributed`` for a multi-host (DCN) run.
+    """Initialize ``jax.distributed`` for a multi-host run.
 
     The scene axis of :func:`make_mesh` then spans hosts: lay the mesh out
-    so the CKD/scene batch shards across DCN and the fourier axis stays
-    within each host's ICI domain (SURVEY.md §5/§7.6 — the only cross-host
+    so the CKD/scene batch shards across hosts and the fourier axis stays
+    within each host (SURVEY.md §5/§7.6 — the only cross-host
     communication of the workload is the AIK-weighted reduction).  No-op
     (returns False) when no coordinator is configured, so single-host runs
     and tests never touch the network.
@@ -67,7 +67,7 @@ def init_distributed() -> bool:
     if n_proc is not None:
         # explicit manual-cluster layout (e.g. the 2-process CPU smoke
         # test, tests/test_distributed.py); without these JAX falls back
-        # to its cluster auto-detection (Slurm / GKE / TPU metadata)
+        # to its cluster auto-detection (e.g. Slurm)
         kwargs = dict(coordinator_address=addr,
                       num_processes=int(n_proc),
                       process_id=int(proc_id))
@@ -258,9 +258,9 @@ def solve_multiband_sharded(mesh: Mesh, inp: solver.SolveInputs,
     gather of the tiny boundary records).  The case count must divide the
     scene axis; pad with a duplicate case and drop it.
 
-    This is the pod-scale LUT story: bands x AOT x albedo x geometry
-    cases shard across chips/hosts, each solving its own (term x order)
-    grid with the single-chip kernels.
+    Bands x AOT x albedo x geometry cases shard across devices and hosts,
+    each solving its own (term x order) grid with the single-device
+    kernels.
     """
     n_scene = mesh.shape["scene"]
     if inp.k_aer.shape[0] % n_scene:

@@ -1,4 +1,4 @@
-"""Precision policy of the TPU solver, and the f32-vs-f64 gate.
+"""Precision policy of the solver, and the f32-vs-f64 gate.
 
 **Policy** (SURVEY.md §7 hard part (d)): the reference is double precision
 throughout with stop thresholds down to 1e-50 (``inc/SOS.h:395,418``).
@@ -6,24 +6,25 @@ Here:
 
 * all *setup* math (angle grids, GSF bases, Mie, surface matrices, CKD
   interpolation, profile discretization) runs in float64 NumPy;
-* the *solver* runs in a configurable field dtype — float32 on TPU for
-  speed (the MXU), float64 on CPU for oracle tests;
+* the *solver* runs in the dtype of its inputs — float32 on the GPU for
+  speed, float64 on the CPU for oracle tests and under the CLI, which
+  enables x64;
 * convergence thresholds are clamped to the representable range of the
   field dtype: ``SEUIL_VALDIF = 1e-50`` underflows float32, so the
   absolute stop test degrades to an exact-zero test there (``solver``
   clamps it to ``finfo.tiny``), which keeps the semantics — the test
   exists to stop dead fields, not to measure 1e-50 radiances;
 * the scattering-source matmul accumulates in the field dtype
-  (``preferred_element_type``); on TPU a float32 matmul multiplies in
-  bfloat16 by default with float32 accumulation, which the gate below
-  validates against float64.
+  (``preferred_element_type``); on an NVIDIA GPU a float32 matmul at
+  DEFAULT precision multiplies in TF32 with float32 accumulation, which
+  the gate below validates against float64.
 
 **Gate**: :func:`compare_dtypes` runs the *same* pinned demo-shape solve
 (NT=600, IBORM=80, NBMU=41 — the shape of one CKD term of the reference
 demo ``exe/runSOS-ABS_demo.ksh``) in float32 and float64 and reports the
-worst relative I/Q/U disagreement above an absolute floor.  ``bench.py``
-runs it on the TPU and refuses to report a throughput number whose answers
-drift; ``tests/test_precision.py`` runs it on CPU.
+worst relative I/Q/U disagreement above an absolute floor.
+``chip_smoke.py`` runs it on the GPU and fails when the answers drift;
+``tests/test_precision.py`` runs it on the CPU.
 """
 
 from __future__ import annotations
@@ -39,11 +40,9 @@ REL_FLOOR = 1.0e-6
 
 #: acceptance thresholds for the f32 path vs the CPU f64 oracle on the
 #: pinned demo-shape case, in allclose form |f32 - f64| <= ATOL + RTOL*|f64|.
-#: Measured on TPU v5e: max abs error 4.5e-4 (HIGHEST matmuls) to 5.1e-4
-#: (DEFAULT bf16 matmuls, the production choice — see
-#: ``solver.MATMUL_PRECISION``); the bounds carry margin over both and
-#: still catch the associative-scan-on-TPU drift failure mode seen during
-#: bring-up (2e-1).
+#: Measured on an NVIDIA H100 (TF32 scatter matmuls, the sweep kernel):
+#: max abs error 1.14e-5, max rel error 5.5e-4, 2% of the allowed
+#: deviation (``tol_ratio`` 0.0197, ``chip_smoke.py`` phase b).
 F32_REL_TOL = 5.0e-3
 F32_ABS_TOL = 5.0e-6
 
@@ -110,38 +109,57 @@ def rel_err(a: np.ndarray, b: np.ndarray,
     return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), floor)))
 
 
-def compare_dtypes(n_gauss: int = 40, nt: int = 600, os_nb: int = 80,
-                   igmax: int = 30, n_terms: int = 1) -> dict:
-    """Solve the pinned case in f32 (production backend) and f64 (host CPU)
-    and report the disagreement.
+def cpu_reference(n_gauss: int = 40, nt: int = 600, os_nb: int = 80,
+                  igmax: int = 30, n_terms: int = 1) -> np.ndarray:
+    """Boundary records (T, S, 3, D) of the pinned case solved in float64
+    on the CPU backend.
 
-    The f64 arm ALWAYS runs on the CPU backend: TPU float64 is emulated
-    and measured unreliable at this workload (abs error 4e-2 vs CPU f64 on
-    the demo shape, dominated by ``lax.associative_scan`` — the in-process
-    CPU backend reproduces the standalone CPU result bit-for-bit).  The
-    f32 arm runs wherever production runs (the default backend), i.e. the
-    Pallas sweep on TPU.
-
-    Returns ``{"max_rel_err", "max_abs_err", "ok"}``; ``ok`` applies the
-    allclose criterion (:data:`F32_REL_TOL`, :data:`F32_ABS_TOL`).
+    This is the reference, an implementation independent of the device
+    path (the associative-scan sweep, float64 matmuls); running it on the
+    CPU is by design, not a fallback.
     """
     import jax
     import jax.numpy as jnp
 
-    kw = dict(n_gauss=n_gauss, nt=nt, os_nb=os_nb, igmax=igmax,
-              n_terms=n_terms)
-    # scope x64 to the f64 arm: global x64 changes index dtypes inside the
-    # Pallas sweep kernel (i32/i64 mixing), and the f32 production path
-    # must be measured exactly as it ships
     cpu0 = jax.devices("cpu")[0]
     with jax.enable_x64(True), jax.default_device(cpu0):
-        i64 = _solve(demo_problem(jnp.float64, **kw))
+        return _solve(demo_problem(jnp.float64, n_gauss=n_gauss, nt=nt,
+                                   os_nb=os_nb, igmax=igmax,
+                                   n_terms=n_terms))
+
+
+def tol_ratio(got: np.ndarray, want: np.ndarray) -> float:
+    """Worst ``|got - want| / (F32_ABS_TOL + F32_REL_TOL * |want|)``: the
+    gate's allclose criterion holds when this is <= 1."""
+    return float(np.max(np.abs(got - want)
+                        / (F32_ABS_TOL + F32_REL_TOL * np.abs(want))))
+
+
+def compare_dtypes(n_gauss: int = 40, nt: int = 600, os_nb: int = 80,
+                   igmax: int = 30, n_terms: int = 1,
+                   i64: np.ndarray = None) -> dict:
+    """Solve the pinned case in f32 (production backend) and f64 (host CPU,
+    :func:`cpu_reference`; pass ``i64`` to reuse one) and report the
+    disagreement.
+
+    The f32 arm runs wherever production runs (the default backend), i.e.
+    the sweep kernel on a GPU.  Returns ``{"max_rel_err", "max_abs_err",
+    "tol_ratio", "ok"}``; ``ok`` applies the allclose criterion
+    (:func:`tol_ratio` <= 1).
+    """
+    import jax.numpy as jnp
+
+    kw = dict(n_gauss=n_gauss, nt=nt, os_nb=os_nb, igmax=igmax,
+              n_terms=n_terms)
+    if i64 is None:
+        # x64 is scoped to the f64 arm: the f32 production path must be
+        # measured exactly as it ships
+        i64 = cpu_reference(**kw)
     i32 = _solve(demo_problem(jnp.float32, **kw))
-    err = rel_err(i32, i64)
-    ok = bool(np.all(np.abs(i32 - i64)
-                     <= F32_ABS_TOL + F32_REL_TOL * np.abs(i64)))
+    ratio = tol_ratio(i32, i64)
     return {
-        "max_rel_err": err,
+        "max_rel_err": rel_err(i32, i64),
         "max_abs_err": float(np.max(np.abs(i32 - i64))),
-        "ok": ok,
+        "tol_ratio": ratio,
+        "ok": ratio <= 1.0,
     }

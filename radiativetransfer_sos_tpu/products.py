@@ -1,6 +1,6 @@
 """Stage-product file writers for mechanical diffing against the reference.
 
-The reference pipeline communicates through product files; the TPU
+The reference pipeline communicates through product files; this
 framework keeps everything in memory but can emit the same products on
 request so that stage-level diffing against a compiled reference (or
 archived runs) stays mechanical:

@@ -88,7 +88,7 @@ def _ref_stop_f64(bnd, seuil, n_s):
 
 
 def test_stop_f32_compensated_matches_f64():
-    """The f32 stop-sum carry (TPU production path: no x64) must reproduce
+    """The f32 stop-sum carry (the GPU production path: no x64) must reproduce
     the f64 oracle's stop decisions — the compensated (value, residual)
     pair in ``_stop_step`` gives the cross-block accumulation
     f64-equivalent error (judge r3 item #6; reference DOUBLE PRECISION,

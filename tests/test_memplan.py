@@ -1,9 +1,9 @@
-"""HBM-aware dispatch planner arithmetic (judge r4 item #2).
+"""Memory-aware dispatch planner arithmetic.
 
-The round-3 regression: committed chunk defaults (32 orders x 256 terms)
-exceeded v5e HBM at compile time while the CPU suite stayed green.  These
-tests pin the planner to the observed calibration points and guarantee it
-can never hand the dispatcher a shape that exceeds the budget.
+A dispatch whose (orders x terms) tile exceeds device memory dies at XLA
+buffer assignment while a CPU suite stays green.  These tests pin the
+planner's estimate at a 16 GiB device and guarantee it can never hand the
+dispatcher a shape that exceeds the budget.
 """
 
 import numpy as np
@@ -11,25 +11,24 @@ import pytest
 
 from radiativetransfer_sos_tpu import memplan
 
-V5E = 16 * 2 ** 30
+HBM16 = 16 * 2 ** 30
 DEMO = dict(nt=600, n_mu=41)
 
 
 def test_estimate_rejects_known_oom_shape():
-    # the exact shape whose XLA buffer assignment blew up in round 3
+    # 32 orders x 256 terms at the demo shape needs ~33 GB
     est = memplan.estimate_bytes(32, 256, **DEMO)
-    assert est > memplan.budget_bytes(V5E)
+    assert est > memplan.budget_bytes(HBM16)
 
 
 @pytest.mark.parametrize("block,chunk", [(16, 128), (8, 256), (4, 512)])
 def test_estimate_accepts_known_good_shapes(block, chunk):
-    # all measured running on the v5e this round (.scratch sweep logs /
-    # BENCH output); XLA-reported temp for each is ~8.07 GB
+    # ~8 GB each at the demo shape
     est = memplan.estimate_bytes(block, chunk, **DEMO)
-    assert est <= memplan.budget_bytes(V5E)
+    assert est <= memplan.budget_bytes(HBM16)
 
 
-def test_block_for_terms_measured_boundaries():
+def test_block_for_terms_boundaries():
     assert memplan.block_for_terms(512) == 4
     assert memplan.block_for_terms(256) == 4
     assert memplan.block_for_terms(128) == 8
@@ -45,18 +44,18 @@ def test_pick_always_fits_budget(n_terms, use_zout, imat):
     inc/SOS.h:278-292) must yield a dispatch inside the budget."""
     block, chunk = memplan.pick_dispatch(n_terms, 81, 600, 41,
                                          use_zout=use_zout, imat_surf=imat,
-                                         hbm=V5E)
+                                         hbm=HBM16)
     assert 1 <= block <= 81
     assert 1 <= chunk <= max(n_terms, memplan.CHUNK_CANDIDATES[-1])
     est = memplan.estimate_bytes(block, chunk, 600, 41, use_zout, imat)
-    assert est <= memplan.budget_bytes(V5E)
+    assert est <= memplan.budget_bytes(HBM16)
 
 
 def test_pick_uses_whole_batch_when_it_fits():
-    block, chunk = memplan.pick_dispatch(512, 81, 600, 41, hbm=V5E)
+    block, chunk = memplan.pick_dispatch(512, 81, 600, 41, hbm=HBM16)
     assert (block, chunk) == (4, 512)
     # small batches: single chunk, measured block 16
-    block, chunk = memplan.pick_dispatch(16, 81, 600, 41, hbm=V5E)
+    block, chunk = memplan.pick_dispatch(16, 81, 600, 41, hbm=HBM16)
     assert (block, chunk) == (16, 16)
 
 
@@ -70,30 +69,32 @@ def test_pick_respects_zout_overhead():
     assert zout[0] * zout[1] < plain[0] * plain[1]
 
 
-def test_device_hbm_table_fallback():
-    class Fake:
-        device_kind = "TPU v5 lite"
+class _Dev:
+    def __init__(self, platform, stats=None):
+        self.platform = platform
+        self.device_kind = "test " + platform
+        self._stats = stats
 
-        def memory_stats(self):
-            return None
+    def memory_stats(self):
+        return self._stats
 
-    assert memplan.device_hbm(Fake()) == 16 * 2 ** 30
 
-    class Fake2:
-        device_kind = "something new"
+def test_device_hbm_gpu_reads_bytes_limit():
+    dev = _Dev("gpu", {"bytes_limit": 12345678, "bytes_in_use": 0})
+    assert memplan.device_hbm(dev) == 12345678.0
 
-        def memory_stats(self):
-            raise RuntimeError("unsupported")
 
-    assert memplan.device_hbm(Fake2()) == memplan.DEFAULT_HBM
+def test_device_hbm_cpu_is_host_memory():
+    import os
+    host = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    assert memplan.device_hbm(_Dev("cpu")) == float(host)
+    import jax
+    assert memplan.device_hbm(jax.devices("cpu")[0]) == float(host)
 
-    class Fake3:
-        device_kind = "TPU v5 lite"
 
-        def memory_stats(self):
-            return {"bytes_limit": 12345678}
-
-    assert memplan.device_hbm(Fake3()) == 12345678.0
+def test_device_hbm_unknown_device_raises():
+    with pytest.raises(ValueError, match="no memory rule"):
+        memplan.device_hbm(_Dev("rocm", {"bytes_limit": 1}))
 
 
 def test_solver_defaults_route_through_planner():

@@ -1,26 +1,22 @@
-"""Pallas hot-path kernels vs. their XLA references, on CPU.
+"""The layer-sweep kernel and the scattering-source matmul vs. their
+plain references, on the CPU.
 
-Round-2's final commit shipped a Pallas sweep with kernel signatures out of
-sync with their `pallas_call` operands — every TPU f32 solve crashed while
-the CPU suite stayed green, because nothing exercised the kernels off-TPU.
-These tests run the *real* kernels in interpret mode on CPU
-(`pl.pallas_call(..., interpret=True)`) and assert against the XLA
-fallbacks, so breaking a kernel contract fails the CPU suite.
-
-Covered: `pallas_ops.sweep_scan_batched` (affine Hillis-Steele layer
-integration, reference ``SOS_INTEGR_EPOPT``,
-``/root/reference/src/SOS_OS.F:2222-2354``) and `pallas_ops.scatter_fused`
-(mix + per-order operator matmul, reference ``SOS_FSOURCE_ORDREIG``,
-``src/SOS_OS.F:2663``).
+The sweep kernel (``sweep_triton.sweep``, a Pallas kernel on the Triton
+route, reference ``SOS_INTEGR_EPOPT``, ``src/SOS_OS.F:2222-2354``) runs here
+in interpret mode (``pl.pallas_call(..., interpret=True)``) against the
+associative-scan sweep, so breaking the kernel's contract fails the CPU
+suite; ``test_gpu_kernels_match_scan`` runs it compiled on a GPU.  The
+scattering source (``solver._scatter_source``, reference
+``SOS_FSOURCE_ORDREIG``, ``src/SOS_OS.F:2663``) is held to a float64 NumPy
+evaluation written the other way round: ``x*(F@M_aer) + y*(F@M_mol)``.
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax import lax
 
-from radiativetransfer_sos_tpu import pallas_ops
+from radiativetransfer_sos_tpu import checks, solver, sweep_triton
 from radiativetransfer_sos_tpu.solver import _sweep_flat_scan
 
 
@@ -41,24 +37,16 @@ def _case(nt, ts, hp, seed, zero_pad_layers=0):
     return jnp.asarray(h), jnp.asarray(muh), jnp.asarray(src), jnp.asarray(bc)
 
 
-def _run_scan_kernel(h, muh, src, bc, interpret=True):
-    """Drive sweep_scan_batched through the solver's padding conventions:
-    levels padded to the chunk size (identity layers), instances padded to
-    the block size.  Returns (up, dn) trimmed back to (TS, NT+1, HP)."""
-    ts, ntp1, w = src.shape
-    hp = w // 2
-    nt = ntp1 - 1
-    lp = pallas_ops.pad_levels(nt)
-    bp = ((ts + pallas_ops._IB - 1) // pallas_ops._IB) * pallas_ops._IB
-    h_p = jnp.pad(h, ((0, bp - ts), (0, lp - ntp1)), mode="edge")
-    src_p = jnp.pad(src, ((0, bp - ts), (0, lp - ntp1), (0, 0)))
-    bc_p = jnp.pad(bc, ((0, bp - ts), (0, 0)))
-    coeffs = pallas_ops.sweep_coeffs(h_p, nt)
-    hp_ = src_p.shape[-1] // 2
-    up, dn = pallas_ops.sweep_scan_batched(src_p[..., :hp_],
-                                           src_p[..., hp_:], coeffs, muh,
-                                           bc_p, nt, interpret=interpret)
-    return np.asarray(up[:ts, :ntp1]), np.asarray(dn[:ts, :ntp1])
+def _run_kernel(h, muh, src, bc):
+    """Drive the kernel through the solver's level padding (identity layers
+    up to ``solver.pad_levels``).  Returns the field trimmed back to
+    (TS, NT+1, W)."""
+    ts, ntp1, _ = src.shape
+    lp = solver.pad_levels(ntp1 - 1)
+    h_p = jnp.pad(h, ((0, 0), (0, lp - ntp1)), mode="edge")
+    src_p = jnp.pad(src, ((0, 0), (0, lp - ntp1), (0, 0)))
+    out = sweep_triton.sweep(h_p, muh, src_p, bc, interpret=True)
+    return np.asarray(out[:, :ntp1])
 
 
 def _f64_reference(h, muh, src, bc):
@@ -70,16 +58,13 @@ def _f64_reference(h, muh, src, bc):
     return np.asarray(out)
 
 
-def _assert_as_accurate(up, dn, h, muh, src, bc):
-    """The kernel and the f32 scan round differently (roll-based vs
-    slice-based tree composition), so compare both to the f64 truth: the
-    kernel's worst error must be within a small factor of the f32 scan's
-    own worst error."""
-    hp = muh.shape[0]
+def _assert_as_accurate(got, h, muh, src, bc):
+    """The kernel (sequential level loop) and the f32 scan (log-depth tree)
+    round differently, so compare both to the f64 truth: the kernel's
+    worst error must be within a small factor of the f32 scan's own."""
     want = _f64_reference(h, muh, src, bc)
     scan32 = np.asarray(jax.vmap(_sweep_flat_scan, in_axes=(0, None, 0, 0))(
         h, muh, src, bc))
-    got = np.concatenate([up, dn], axis=-1)
     err_got = np.max(np.abs(got - want))
     err_scan = np.max(np.abs(scan32 - want))
     assert err_got <= 4.0 * err_scan + 1e-6, (err_got, err_scan)
@@ -88,89 +73,61 @@ def _assert_as_accurate(up, dn, h, muh, src, bc):
 @pytest.mark.parametrize("nt,ts", [(1, 1), (7, 3), (255, 8), (600, 9)])
 def test_sweep_interpret_matches_scan(nt, ts):
     h, muh, src, bc = _case(nt, ts, hp=16, seed=nt * 31 + ts)
-    up, dn = _run_scan_kernel(h, muh, src, bc)
-    _assert_as_accurate(up, dn, h, muh, src, bc)
+    _assert_as_accurate(_run_kernel(h, muh, src, bc), h, muh, src, bc)
 
 
 def test_sweep_interpret_zero_thickness_pad_layers():
     # trailing dtau == 0 layers must be identity steps (profile pads)
     h, muh, src, bc = _case(120, 5, hp=16, seed=7, zero_pad_layers=30)
-    up, dn = _run_scan_kernel(h, muh, src, bc)
-    _assert_as_accurate(up, dn, h, muh, src, bc)
+    _assert_as_accurate(_run_kernel(h, muh, src, bc), h, muh, src, bc)
 
 
-def _scatter_case(s_n, t_n, hp, lp, seed):
-    rng = np.random.default_rng(seed)
-    w = 2 * hp
-    up = rng.standard_normal((s_n * t_n, lp, hp)).astype(np.float32)
-    dn = rng.standard_normal((s_n * t_n, lp, hp)).astype(np.float32)
-    xd = rng.uniform(0.0, 1.0, (s_n * t_n, lp, 1)).astype(np.float32)
-    yd = (1.0 - xd).astype(np.float32)
-    mboth = rng.standard_normal((s_n, 2 * w, w)).astype(np.float32)
-    return map(jnp.asarray, (up, dn, xd, yd, mboth))
+def test_sweep_choice_by_platform():
+    """One place picks the sweep, by the platform it is lowered for: the
+    GPU lowering carries the Triton kernel, the CPU lowering the scan."""
+    h, muh, src, bc = _case(30, 2, hp=128, seed=5)
+    src = jnp.concatenate([src, src])              # S = 2 orders x T = 2
+    bc = jnp.concatenate([bc, bc])
+    traced = jax.jit(solver._sweep_batched).trace(h, muh, src, bc)
+    gpu = traced.lower(lowering_platforms=("cuda",)).as_text()
+    cpu = traced.lower(lowering_platforms=("cpu",)).as_text()
+    assert "sos_layer_sweep" in gpu and "triton" in gpu
+    assert "sos_layer_sweep" not in cpu and "triton" not in cpu
+    np.testing.assert_allclose(
+        np.asarray(jax.jit(solver._sweep_batched)(h, muh, src, bc)),
+        np.asarray(jax.jit(solver._sweep_scan_batched)(h, muh, src, bc)),
+        rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("s_n,t_n", [(2, 8), (3, 16)])
-def test_scatter_fused_interpret_matches_matmul(s_n, t_n):
-    lp = pallas_ops._CH
+@pytest.mark.parametrize("s_n,t_n,lp", [(2, 8, 128), (3, 16, 128),
+                                        (8, 4, 640)])
+def test_scatter_matches_f64_einsum(s_n, t_n, lp):
+    """The scattering source at HP = 128 (the demo hemisphere width)
+    against float64 NumPy: mixing applied after each operator."""
     hp = 128
-    up, dn, xd, yd, mboth = _scatter_case(s_n, t_n, hp, lp, s_n * 7 + t_n)
-    bpo = t_n // pallas_ops._IB
-    xy = jnp.concatenate([xd, yd], axis=-1)
-    gu, gd = pallas_ops.scatter_fused(
-        up, dn, xy, mboth, bpo, precision=lax.Precision.HIGHEST,
-        interpret=True)
-    got = np.concatenate([np.asarray(gu), np.asarray(gd)], axis=-1)
-    # XLA reference: same mix + per-order matmul
-    f2 = jnp.concatenate([xd * up, xd * dn, yd * up, yd * dn], axis=-1)
-    f2 = f2.reshape(s_n, t_n * lp, 4 * hp)
-    want = jnp.matmul(f2, mboth, precision=lax.Precision.HIGHEST)
-    want = np.asarray(want.reshape(s_n * t_n, lp, 2 * hp))
-    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-4)
+    w = 2 * hp
+    rng = np.random.default_rng(s_n * 7 + t_n)
+    fld = rng.standard_normal((s_n, t_n, lp, w)).astype(np.float32)
+    xd = rng.uniform(0.0, 1.0, (t_n, lp)).astype(np.float32)
+    yd = (1.0 - xd).astype(np.float32)
+    mboth = (0.05 * rng.standard_normal((s_n, 2 * w, w))).astype(np.float32)
+    got = np.asarray(solver._scatter_source(
+        jnp.asarray(fld), jnp.asarray(xd), jnp.asarray(yd),
+        jnp.asarray(mboth)))
+    f64 = fld.astype(np.float64)
+    m_aer, m_mol = mboth[:, :w].astype(np.float64), \
+        mboth[:, w:].astype(np.float64)
+    want = (xd[None, :, :, None] * np.einsum("stlk,skj->stlj", f64, m_aer)
+            + yd[None, :, :, None] * np.einsum("stlk,skj->stlj", f64,
+                                                m_mol))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
-def test_fused_scatter_sweep_interpret_matches_pipeline():
-    """The fused order-update kernel == scatter_fused -> sweep_scan_batched
-    (it is kept as a measured-slower variant; bitwise equality on TPU,
-    allclose in interpret mode where op order may differ)."""
-    rng = np.random.default_rng(11)
-    b_n, lp, hp = 16, 2 * pallas_ops._CH, 128
-    nt = lp - 40
-    bpo = b_n // pallas_ops._IB     # single order
-    up = jnp.asarray(rng.random((b_n, lp, hp)), jnp.float32)
-    dn = jnp.asarray(rng.random((b_n, lp, hp)), jnp.float32)
-    xd = jnp.asarray(rng.random((b_n, lp, 1)), jnp.float32)
-    yd = 1.0 - xd
-    mb = jnp.asarray(rng.random((1, 4 * hp, 2 * hp)) * 0.01, jnp.float32)
-    h1 = np.concatenate([[0.0], np.cumsum(rng.uniform(1e-4, 2e-3, lp - 1))])
-    h_b = jnp.asarray(np.broadcast_to(h1, (b_n, lp)), jnp.float32)
-    muh = jnp.asarray(np.concatenate([rng.uniform(0.05, 1.0, hp - 2),
-                                      np.ones(2)]), jnp.float32)
-    bc = jnp.asarray(rng.random((b_n, hp)), jnp.float32)
-    coeffs = pallas_ops.sweep_coeffs(h_b, nt)
-    prec = lax.Precision.HIGHEST
-
-    xy = jnp.concatenate([xd, yd], axis=-1)
-    src_u, src_d = pallas_ops.scatter_fused(up, dn, xy, mb, bpo, prec,
-                                            interpret=True)
-    want_up, want_dn = pallas_ops.sweep_scan_batched(
-        src_u, src_d, coeffs, muh, bc, nt, interpret=True)
-    got_up, got_dn = pallas_ops.fused_scatter_sweep(
-        up, dn, xy, mb, bpo, coeffs, muh, bc, nt, prec,
-        interpret=True)
-    np.testing.assert_allclose(np.asarray(got_up), np.asarray(want_up),
-                               rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(got_dn), np.asarray(want_dn),
-                               rtol=1e-5, atol=1e-5)
-
-
-def test_tpu_kernels_match_scan(tpu_device):
-    """The REAL (non-interpret) kernels on the attached TPU — interpret
-    mode cannot catch Mosaic lowering or tiling regressions (judge r3
-    item #3; skipped only when no TPU is attached)."""
-    h, muh, src, bc = _case(300, 12, hp=128, seed=3)
-    with jax.default_device(tpu_device):
-        h, muh, src, bc = (jax.device_put(x, tpu_device)
-                           for x in (h, muh, src, bc))
-        up, dn = _run_scan_kernel(h, muh, src, bc, interpret=False)
-    _assert_as_accurate(up, dn, h, muh, src, bc)
+@pytest.mark.gpu
+def test_gpu_kernels_match_scan(gpu_device):
+    """The compiled (non-interpret) kernel on the GPU — interpret mode
+    cannot catch Triton lowering or launch regressions.  Same body as
+    ``chip_smoke.py`` phase a, at a smaller batch."""
+    with jax.enable_x64(False), jax.default_device(gpu_device):
+        rec = checks.sweep_check(n_orders=2, n_terms=16, nt=300, n_ref=16)
+    assert rec["ok"], rec

@@ -1,9 +1,9 @@
 """f32-vs-f64 precision gate at the full demo shape (VERDICT round-1 #1).
 
-The production TPU path runs the solver in float32 while every correctness
+The production GPU path runs the solver in float32 while every correctness
 oracle runs float64; this gate pins their agreement at the flagship shape
 (NT=600, IBORM=80, NBMU=41 — one CKD term of ``exe/runSOS-ABS_demo.ksh``).
-``bench.py`` runs the same gate on the TPU before reporting throughput.
+``chip_smoke.py`` runs the same gate on the GPU (phase b).
 """
 
 import numpy as np

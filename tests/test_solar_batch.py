@@ -134,19 +134,18 @@ def test_thetas_sweep_glitter_one_group():
         np.testing.assert_array_equal(rb.up["q"], rs.up["q"])
 
 
-def test_thetas_sweep_on_tpu(tpu_device):
-    """The decoupled-sun multiband sweep on the REAL chip: the f32 device
-    path (Pallas kernels + device-side group aggregation) agrees with the
-    sequential per-case path within the device-aggregation tolerance."""
+@pytest.mark.gpu
+def test_thetas_sweep_on_gpu(gpu_device):
+    """The decoupled-sun multiband sweep and a flattened AOT x albedo sweep
+    on the GPU: the f32 device path (sweep kernel + device-side group
+    aggregation) agrees with the sequential per-case path within the
+    device-aggregation tolerance.  Same body as ``chip_smoke.py`` phase e,
+    at a smaller angle grid."""
     import jax
 
-    base = _cfg(solar_in_grid=False, aot=0.2, alb=0.1)
-    cases = lut.sweep_configs(base, {"angles.thetas_deg": [25.0, 45.0]})
-    with jax.default_device(tpu_device):
-        seq = lut.sos_run_many(cases)
-        bat = lut.sos_run_many(cases, batch_cases=True)
-    for rs, rb in zip(seq, bat):
-        np.testing.assert_allclose(rb.up["i"], rs.up["i"],
-                                   rtol=1e-5, atol=1e-7)
-        np.testing.assert_allclose(rb.up["q"], rs.up["q"],
-                                   rtol=1e-4, atol=1e-7)
+    from radiativetransfer_sos_tpu import checks
+
+    with jax.enable_x64(False), jax.default_device(gpu_device):
+        rec = checks.lut_check(nbmu=10, n_aot=2, n_alb=2,
+                               thetas=(25.0, 45.0))
+    assert rec["ok"], rec
